@@ -2,7 +2,7 @@
 //
 // The reference's data path is MATLAB fread/fwrite of raw int16 streams with
 // a 44-byte canonical wav header plus the hop-shift frame queue
-// (filewise_run_IS16.m:92-167, pcm2wav.m:3-11).  The TPU framework keeps
+// (filewise_run_IS16.m:92-167, pcm2wav.m:3-11).  This framework keeps
 // that path off the device: these C++ kernels do the host-side byte work --
 // wav parse/write, MATLAB-exact int16 quantization, stream framing, and
 // overlap-add -- so the Python layer never loops over samples.  Exposed with

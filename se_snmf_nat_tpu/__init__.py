@@ -1,11 +1,11 @@
-"""se_snmf_nat_tpu — TPU-native sparse-NMF speech-enhancement framework.
+"""se_snmf_nat_tpu — sparse-NMF speech-enhancement framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 lordet01/SE_SNMF_NAT reference (GIST Source Separation + Enhancement Engine,
 Interspeech-2016 "Local Sparsity Based Online Dictionary Learning for
 Environment-Adaptive Speech Enhancement with NMF").
 
-Layer map (TPU-first, not a port):
+Layer map (accelerator-first, not a port):
   dsp/      — batched STFT/iSTFT, mel filterbank, splicing, smoothing (XLA rfft)
   nmf/      — beta-divergence sparse-NMF multiplicative-update solvers
               (batched, masked, jit-friendly while_loop convergence)
@@ -15,7 +15,6 @@ Layer map (TPU-first, not a port):
   stream/   — streaming & offline pipeline facades
   train/    — dictionary training (SNMF / exemplar / DNMF refit / k-means)
   parallel/ — mesh construction, data-parallel sharding, psum stat merges
-  kernels/  — Pallas TPU kernels for the hot MU inner loops
   oracle/   — float64 NumPy bit-faithful re-implementation of the reference
               semantics (the test oracle; NOT the production path)
   io/       — wav/PCM int16 I/O with MATLAB-compatible quantization, .mat bases

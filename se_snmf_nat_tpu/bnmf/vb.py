@@ -30,8 +30,8 @@ sum_t EH rate.  Alternating the H and W blocks (each paired with the
 implicit optimal q(Z)) is coordinate ascent on the ELBO, so the bound is
 monotone non-decreasing — the correctness oracle the tests gate on.
 
-TPU mapping: every update is two GEMM-class contractions plus
-elementwise VPU work on (F, K)/(K, T) panels — the same MXU shape class
+Device mapping: every update is two GEMM-class contractions plus
+elementwise work on (F, K)/(K, T) panels — the same GEMM shape class
 as the sparse-NMF MU loop — iterated under ``lax.scan`` with static
 iteration counts (no data-dependent control flow).
 """

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU sparse-NMF speech-enhancement framework.
+"""Typed configuration for the sparse-NMF speech-enhancement framework.
 
 Replaces the reference's ``global p`` script-config system
 (``settings/initial_setting_SNMF_NAT.m:1-149`` and the eight frozen variants
@@ -168,15 +168,15 @@ class RuntimeConfig:
     """Execution options (not part of the algorithm definition)."""
 
     dtype: str = "float32"       # JAX compute dtype
-    # 'default' (1-pass bf16 MXU) measures statistically identical to
-    # 'highest' (6-pass) against the reference golden wavs (corr 0.9967 vs
-    # 0.9972, mean|err| 71.8 vs 74.1 LSB on M03) and is ~12% faster; x64
-    # oracle-parity tests are unaffected (precision only changes f32 on TPU)
+    # 'default' measured statistically identical to 'highest' against the
+    # reference golden wavs on the previous accelerator (corr 0.9967 vs
+    # 0.9972 on M03).  On the H100 'default' is TF32 (chip_smoke.py device
+    # phase).  x64 oracle-parity tests are unaffected (precision only
+    # changes f32 matmuls)
     matmul_precision: str = "default"
     batch_size: int = 1          # utterances per device in offline mode
     mesh_shape: Tuple[int, ...] = ()   # empty = single device
     mesh_axes: Tuple[str, ...] = ("data",)
-    use_pallas: bool = True      # fused Pallas MU kernels where profitable
     donate_state: bool = True
 
 

@@ -4,7 +4,7 @@ tf_dd: first-order decision-directed smoothing along time
 (src/TF_DD.m: X[l] = a*X[l-1] + (1-a)*X[l], X[0] unchanged).
 
 The JAX variant uses an associative scan so long spectrograms parallelize
-across the time axis on TPU instead of running a length-T serial loop.
+across the time axis on the device instead of running a length-T serial loop.
 """
 
 from __future__ import annotations

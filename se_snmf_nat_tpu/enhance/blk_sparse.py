@@ -1,4 +1,4 @@
-"""Local block-sparsity statistic Q — TPU-vectorized.
+"""Local block-sparsity statistic Q — vectorized.
 
 Re-design of src/blk_sparse.m.  The reference loops over ~150 frequency
 blocks per frame, reshaping a (P_len_k, P_len_l) window and computing the
@@ -49,16 +49,17 @@ def block_sparsity_stat(r_ring: jnp.ndarray, l: jnp.ndarray, *, n_bins: int,
     n = p_len_k * p_len_l
     sqrt_n = float(np.sqrt(n))
 
-    # Row stats and inclusive cumsums with a zero prepended: window sums for
-    # 1-based center k cover rows k-half+1..k+half == cs[k+half] - cs[k-half].
+    # Row stats, then direct window sums: 1-based center k covers 0-based
+    # rows k-half..k+half-1.  Not prefix-sum differences: in f32 the
+    # difference of two large cumsums cancels, goes negative on windows of
+    # tiny values, and the sqrt below turns that into NaN.
     rs = jnp.sum(r_ring, axis=1)
     rq = jnp.sum(r_ring * r_ring, axis=1)
-    cs1 = jnp.concatenate([jnp.zeros((1,), dtype), jnp.cumsum(rs)])
-    cs2 = jnp.concatenate([jnp.zeros((1,), dtype), jnp.cumsum(rq)])
 
     ks = _centers(n_bins, p_len_k, dc_bin, gap)          # static
-    l1 = cs1[ks + half] - cs1[ks - half]
-    l2 = jnp.sqrt(cs2[ks + half] - cs2[ks - half])
+    rows = ks[:, None] - half + np.arange(p_len_k)[None, :]
+    l1 = jnp.sum(rs[rows], axis=1)
+    l2 = jnp.sqrt(jnp.sum(rq[rows], axis=1))
     p_tmp = (sqrt_n - l1 / l2) / (sqrt_n - 1.0)
 
     if gap >= 3:
@@ -109,7 +110,7 @@ def block_sparsity_q(xm: jnp.ndarray, dm: jnp.ndarray, r_blk: jnp.ndarray,
 def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
                                 p_len_l: int, dc_bin: int, gap: int,
                                 alpha_p: float, cumsum: bool = False):
-    """Whole-block Q: all K frames' statistics in batched MXU ops.
+    """Whole-block Q: all K frames' statistics in batched matmuls.
 
     Q has no sequential dependency — frame j's statistic reads only the
     last P_len_l frames' local-SNR columns, all computable from the
@@ -130,18 +131,14 @@ def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
     formulation by f32 reduction LSBs — quality is re-gated against the
     golden fixtures, not assumed.
 
-    ``cumsum=True`` (r5, MEASURED NEGATIVE — kept as a validated option,
-    do not promote): both window sums become PREFIX-SUM DIFFERENCES
-    instead of banded-0/1 GEMMs — rs[:, j] = cs[:, j+P] - cs[:, j] along
-    time, and the frequency bands gather two rows of a bin-axis cumsum.
-    88x fewer FLOPs on paper, but on the v5e the headline call REGRESSES
-    14.2 -> 23.0 ms (15448 -> 9536 au-s/s, experiments/q_cumsum_r5_out
-    .json): XLA's TPU cumsum lowering (log-step pad/add chains over the
-    minor axis) is far slower than MXU-tiled small GEMMs at these shapes
-    — same lesson as the Pallas MU kernels and the fixed-iteration
-    unrolling.  Math identical (1.5e-13 max diff at f64); at f32 the
-    forms differ ~2e-3 because the GEMM path's default-precision matmuls
-    round to bf16 while prefix adds stay f32.
+    ``cumsum=True`` (a validated option, default off): both window sums
+    become PREFIX-SUM DIFFERENCES instead of banded-0/1 GEMMs —
+    rs[:, j] = cs[:, j+P] - cs[:, j] along time, and the frequency bands
+    gather two rows of a bin-axis cumsum.  88x fewer FLOPs on paper; it
+    ran slower than the GEMM form on the previous accelerator and is not
+    measured on the H100.  Math identical (1.5e-13 max diff at f64); at
+    f32 the forms differ by the GEMMs' input rounding (TF32 on the H100)
+    and by the prefix sums' cancellation.
 
     Returns ``q_block(snr_cols (K,F), r_ring (F,P), ls (K,), n_valid)
     -> (q (K,F), r_ring_new (F,P))`` where n_valid counts the block's

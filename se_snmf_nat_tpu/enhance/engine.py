@@ -1,4 +1,4 @@
-"""The per-frame enhancement engine as a pure scan step (TPU-native).
+"""The per-frame enhancement engine as a pure scan step.
 
 Re-design of src/bnmf_sep_event_RT_IS16.m.  One step consumes a power
 spectrum column and the 1-based frame counter, carries EngineState, and
@@ -57,26 +57,18 @@ def make_engine(cfg: PipelineConfig, b1_x: np.ndarray, b1_d: np.ndarray,
     noise_rank; their per-class sums equal the xm_hat/dm_hat the gain
     uses, so separation adds outputs without changing the enhancement).
 
-    warm_start: DOCUMENTED SEMANTIC DEVIATION, kept as a MEASURED NEGATIVE
-    RESULT — initialize each frame's H-solve from the previous frame's
-    activations instead of the reference's per-frame ``rand('seed',1)``
-    re-init (sparse_nmf.m:112-134).  Measured on TPU v5e (M03, B=64, f32):
-    374 vs 393 audio-s/s/chip (SLOWER) and corr 0.87 vs the cold plan's
-    0.997 against the golden wav.  Why: the production solver stops far
-    from convergence (rel-err ~0.44 vs the eps=1e-6 solution at the
-    reference's conv_eps=1e-3), so outputs are defined by the optimization
-    TRAJECTORY from the specific init, not by the optimum — a warm
-    trajectory lands somewhere else, and iterations only drop 27 -> 19 on
-    average (not enough to pay for anything).  Frame 1 is identical by
-    construction (a_warm seeds from the same legacy-V4 rand column).
-    Related bounds measured for the exact plan: segment speculation cannot
-    exceed ~1.5x (the dictionary actually changes on 65% of M03 frames,
-    mean gap 0.53); batch growth regresses (B=128: 330, B=256: 133).
-    For the BLOCK plan the same dependence is the structural ceiling: an
-    r3 ablation with refit triggers disabled (ar_up=1e9, identical
-    program) gained only 2% — the refit solves are nearly free, and the
-    gap to the non-adaptive fast plan is the T/K sequential per-block
-    while_loops that block b's dependence on block b-1's refit forces.
+    warm_start: DOCUMENTED SEMANTIC DEVIATION, kept as a negative result —
+    initialize each frame's H-solve from the previous frame's activations
+    instead of the reference's per-frame ``rand('seed',1)`` re-init
+    (sparse_nmf.m:112-134).  It lowered golden-wav corr to 0.87 (vs 0.997
+    cold) and did not run faster on the previous accelerator.  Why: the
+    production solver stops far from convergence (rel-err ~0.44 vs the
+    eps=1e-6 solution at the reference's conv_eps=1e-3), so outputs are
+    defined by the optimization TRAJECTORY from the specific init, not by
+    the optimum — a warm trajectory lands somewhere else, and iterations
+    only drop 27 -> 19 on average.  Frame 1 is identical by construction
+    (a_warm seeds from the same legacy-V4 rand column).  The dictionary
+    changes on 65% of M03 frames, which bounds segment speculation.
     """
     s, sep, ad, en, blk = cfg.signal, cfg.sep, cfg.adapt, cfg.enhance, cfg.blk
     if sep.blk_len_sep != 1 or sep.splice != 0:

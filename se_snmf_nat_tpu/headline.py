@@ -1,57 +1,19 @@
 """THE production/headline enhancement plan, defined once.
 
-bench.py (the driver headline), ``bench --scaling`` (the DP scaling
-harness) and ``bench --campaign`` all build the enhancer from here so the
-artifacts can never disagree about what the production plan is
-(VERDICT r2 weakness 6: the r2 scaling artifact measured the exact scan
-and under-reported ~20x).
-
-The configuration is the Pareto pick from ``bench --pareto``
-(PARETO_r04.json) under the documented policy, and
-tests/test_headline_pin.py re-derives the pick from the artifact and
-asserts it equals HEADLINE_PLAN — hand-transcription drift (VERDICT r3
-weakness 6) is structurally impossible.
+bench.py, ``bench --scaling`` and ``bench --campaign`` all build the
+enhancer from here so that they can never disagree about what the
+production plan is.
 """
 
 from __future__ import annotations
 
-# PARETO_r04.json pick: K=88, FIXED 22-iteration H-solves, refit cap 22,
-# bucket 88, unit-phasor stacked-matmul DFT at (analysis 'high',
-# synthesis 'default') — ~15.6k au-s/s (156x) at golden corr .9967 (M03)
-# / .9957 (LM): margin .0057 over the 0.99 gate AND .0027 over the repo's
-# own stricter 0.993 regression gate (the r4 pick policy requires >=.0025
-# there; the r3 pick rode at .0014 — VERDICT r3 weakness 1, resolved).
-# The surface behind the pick (r4 knockout decomposition, BASELINE.md):
-#   * the per-block refit BRANCH (entry normalize + initial-Lambda GEMM +
-#     per-trip KL cost passes + final divergence + merge/permute, run by
-#     every lane under the vmapped cond-as-select) measured ~6 ms of the
-#     19.2 ms r3 call — NOT the refit MU trips the r3 ar_up ablation
-#     removed.  K=88 halves blocks per utterance (4 vs 8), halving every
-#     per-block tail (refit branch, whole-block Q, solve entries);
-#   * K=88 also measures HIGHER corr than K=44 (.9966 vs .9944 on M03):
-#     the coarser refit cadence happens to avoid mid-utterance dictionary
-#     wobble on the fixtures, while K=64 and K=128 FAIL the gate
-#     (M03 .9898) — refit-point alignment is fixture-sensitive, so the
-#     golden gate decides per K (PARETO_r04 rows);
-#   * cap 22: the fastest strongly-margined neighborhood point (cap 16
-#     drops the margin to .0033); refit caps 12 vs 22 are speed-neutral
-#     at identical corr (refits early-stop by ~12 trips anyway) — the
-#     artifact row decides;
-#   * the transform (late r4): the analysis/synthesis pair runs as ONE
-#     stacked MXU matmul per direction with the phase carried as a unit
-#     phasor [cos|sin] instead of an angle (dsp/stft.py — drops the
-#     arctan2 + cos + sin VPU passes; +4.7% alone, and LM corr IMPROVED
-#     .9957 -> .9960).  Precision is per-DIRECTION: analysis rounding is
-#     amplified through the NMF solver trajectory (fwd 'default' drops LM
-#     to .9948, below the .9955 policy floor), synthesis rounding adds
-#     only linear noise to an output whose golden residual is already
-#     ~9% rel — so fwd 'high' (which RECOVERED to .9957 once the phasor
-#     removed the angle round-trip error) + inv 'default' is the fastest
-#     policy-clearing point (PARETO_r04 asymmetric rows);
-#   * measured NEGATIVES kept as exemplar rows: refit_fixed (fixed-trip
-#     refits pay more in forced trips than the skipped cost passes),
-#     split_solve (lane-shared GEMM merging; per-trip time is not
-#     GEMM-bound at these shapes), and loop unrolling (nmf/solver.py note).
+# The round-5 Pareto pick, made on the accelerator of that round against the
+# reference's golden fixtures (golden corr .9967 on M03, .9957 on LM); it
+# has not been re-derived on the H100.  K=88-frame refit blocks, FIXED
+# 22-trip H-solves, refit cap 22, bucket 88, and the unit-phasor
+# stacked-matmul DFT at analysis 'high' / synthesis 'default' precision:
+# analysis rounding is amplified through the solver trajectory, synthesis
+# rounding only adds linear noise to the output.
 HEADLINE_PLAN = dict(
     block_adapt=88,
     frame_bucket=88,
@@ -65,9 +27,10 @@ HEADLINE_PLAN = dict(
 HEADLINE_BATCH = 64
 
 
-def build_headline_enhancer(cfg=None, dtype=None):
-    """The enhancer bench.py measures: block-adaptive SNMF-NAT with the
-    reference dictionaries, f32, MXU-matmul DFT."""
+def build_headline_enhancer(cfg=None, dtype=None, bases=None):
+    """The enhancer bench.py measures: block-adaptive SNMF-NAT, f32,
+    matmul DFT.  ``bases`` is a (speech, noise) pair of ``BasisPair``;
+    without it the reference's pretrained dictionaries are loaded."""
     import jax.numpy as jnp
 
     from se_snmf_nat_tpu.config import default_config
@@ -75,7 +38,11 @@ def build_headline_enhancer(cfg=None, dtype=None):
     from se_snmf_nat_tpu.stream.pipeline import SnmfEnhancer
 
     cfg = cfg or default_config()
-    speech, noise = load_reference_speech_noise(cfg.sep.r_d)
+    if bases is None:
+        speech, noise = load_reference_speech_noise(cfg.sep.r_d)
+    else:
+        speech, noise = bases
+        noise = noise.tiled_to_rank(cfg.sep.r_d)
     return SnmfEnhancer(cfg, speech.b_dft, noise.b_dft, speech.b_dft,
                         noise.b_dft, dtype=dtype or jnp.float32,
                         **HEADLINE_PLAN)

@@ -81,6 +81,11 @@ def reference_basis_dir() -> Path:
     return Path("/root/reference/basis")
 
 
+def reference_wav(name: str) -> Path:
+    """A recording bundled with the reference (``wav/<name>``)."""
+    return reference_basis_dir().parent / "wav" / name
+
+
 def load_reference_speech_noise(r_d: int = 100) -> tuple[BasisPair, BasisPair]:
     """The two dictionaries the north-star config loads
     (filewise_run_IS16.m:24-43): TIMIT-clean speech + CHiME3-background noise,

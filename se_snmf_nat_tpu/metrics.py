@@ -11,7 +11,7 @@ for Speech Enhancement") LPC/critical-band battery: log-likelihood ratio
 scored without external tooling.  PESQ (and therefore the Csig/Cbak/Covl
 composites regressed on it) is deliberately absent: ITU-T P.862 is a
 licensed codebase, not a formula.  NumPy implementations, host-side
-(scoring is IO-bound next to the TPU pipeline).
+(scoring is IO-bound next to the device pipeline).
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ multiplicative KL updates on the channel loadings C (shipped config:
 C_UPDATE=1, A_UPDATE=0, A=ones — GIST_NTF_C.m:4-15) and optionally on the
 activations A.
 
-TPU re-design: the reference materializes Khatri-Rao products and matricized
+Re-design: the reference materializes Khatri-Rao products and matricized
 unfoldings (GIST_NTF_C.m:39-43,88-129); here every contraction is a single
-einsum XLA maps onto the MXU, and the O-side denominators collapse
+einsum XLA maps onto matrix units, and the O-side denominators collapse
 analytically (the unfolding of an all-ones tensor contracted with A(.)B is a
 rank-1 outer product of column sums).  Early stopping runs in a
 lax.while_loop so the whole solve jits.

@@ -1,5 +1,5 @@
 """Parameterized Multichannel Wiener Filter with spectro-temporal
-covariances — TPU-native offline beamformer.
+covariances — offline beamformer in JAX.
 
 Reference math: src/PSD_cov_mat.m (Jin/Shin/Kim SPL 2015 spectro-temporal
 covariance) + src/PMWF_sep_event_RT_CHiME.m:120-177 (noise covariance frozen
@@ -67,10 +67,11 @@ def spectro_temporal_cov(y: jnp.ndarray, m_nbr: int, l_nbr: int
         shifts.append(jnp.where(interior[None, :, None], rolled, y))
     ystack = jnp.stack(shifts, axis=0)             # (2M+1, C, F, T)
     # per-frame frequency-neighborhood outer products — HIGH precision:
-    # the TPU-default bf16 MXU passes leave this Hermitian sum INDEFINITE
-    # at ~1e-4 relative (see streaming.window_cov note), which the
-    # downstream diagonally-loaded Cholesky cannot survive; bf16x3
-    # ('high') measures f32-equivalent PSD-ness at half 'highest' cost
+    # bf16-rounded products leave this Hermitian sum INDEFINITE at ~1e-4
+    # relative (see streaming.window_cov note), which the downstream
+    # diagonally-loaded Cholesky cannot survive.  On the H100 'high' is
+    # TF32 (~2.5e-5 relative on an f32 product, chip_smoke.py device
+    # phase), and the smoke's 6-channel PMWF run stays NaN-free there
     r = jnp.einsum("mcft,mdft->tfcd", ystack, jnp.conj(ystack),
                    precision=jax.lax.Precision.HIGH)
     # temporal box sum of width 2L+1 with edge clamping
@@ -93,10 +94,9 @@ def solve_hpd_small(a: jnp.ndarray, b: jnp.ndarray,
     product sums + eps*I, so no pivoting is needed); b: (..., C, K).
 
     Why not jnp.linalg.solve: XLA lowers it to an LU custom call that is
-    catastrophic for tiny batched systems inside a TPU scan — measured
-    93% of the streaming-PMWF frame step (2962 vs 220 ms per 347-frame
-    8-lane call at C=6), and the complex LU path is additionally
-    unimplemented on some backends.  The unrolled form is ~C^3 vectorized
+    catastrophic for tiny batched systems inside a scan — 93% of the
+    streaming-PMWF frame step on the previous accelerator — and the
+    complex LU path is additionally unimplemented on some backends.  The unrolled form is ~C^3 vectorized
     elementwise ops over the batch, which XLA fuses into the surrounding
     step.  C larger than max_unrolled falls back to jnp.linalg.solve
     (unroll size grows cubically)."""

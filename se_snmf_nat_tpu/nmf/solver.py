@@ -1,6 +1,6 @@
 """Beta-divergence sparse-NMF multiplicative-update solvers (JAX).
 
-TPU-native re-design of the reference solver family (src/sparse_nmf.m — the
+Re-design of the reference solver family (src/sparse_nmf.m — the
 Le Roux/Hershey/Weninger TR2015-023 formulation with L1 sparsity on H and
 updates in L2-normalized basis space; also covers the roles of
 src/sparse_nmf_GPU.m).  Three entry points:
@@ -14,7 +14,7 @@ src/sparse_nmf_GPU.m).  Three entry points:
                              H-update decouples per column, so this is
                              numerically identical to the reference's
                              per-frame m=1 solves (engine :140-154) while
-                             batching thousands of frames into MXU-sized
+                             batching thousands of frames into large
                              GEMMs.
 * masked updates           — the reference packs sub-dictionaries by deleting
                              columns (dynamic shapes,
@@ -45,16 +45,10 @@ from jax import lax
 
 FLR = 1e-9
 
-# MEASURED NEGATIVE RESULT (r4, v5e, do not retry): fully UNROLLING the
-# fixed-iteration (conv_eps<=0) H-solve loops instead of lax.while_loop —
-# plausible because per-trip cost at block-plan shapes (F=513 r=200 K=44
-# B=64) is ~75 us while the fast plan's trips at 8x the columns cost only
-# ~110 us, i.e. trips look overhead-bound — LOSES 13% end to end (headline
-# 9707 vs 11118 au-s/s; split variant 8812 vs 10944).  XLA schedules the
-# rolled loop better than the 20x-unrolled straight-line HLO at these
-# sizes, so the loop machinery is NOT the bottleneck; the block plan's
-# remaining wall is the T/K-sequential dependence itself (see
-# stream/block_adaptive.py and BASELINE.md).
+# Fully UNROLLING the fixed-iteration (conv_eps<=0) H-solve loops instead
+# of lax.while_loop lost end to end on the previous accelerator; not
+# measured on the H100, where a while_loop trip also costs a host-visible
+# predicate, so it is worth measuring again.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +62,14 @@ class SnmfParams:
     # two-phase straggler compaction for snmf_h_solve_columns (0 = off):
     # run all columns for split_iter trips, then gather the still-active
     # columns (typically the ~1% whose relative-cost test oscillates past
-    # the p95 freeze iteration — measured median freeze 25, p95 31 at the
+    # the p95 freeze iteration — median freeze 25, p95 31 at the
     # production KL config) into a split_frac-sized bucket and finish only
     # those.  Column updates depend on no other column, so results are
     # BIT-IDENTICAL to the single-phase loop (tests/test_nmf.py).
-    # Status: validated option, default OFF — on the v5e it LOSES at
-    # production shapes (fast plan 7652 -> 6403 au-s/s) because splitting
-    # XLA's fused while_loop into three costs more HBM round-trips than
-    # the straggler tail's wasted lanes; the shipped straggler answer is
-    # the block plan's measured-quality iteration cap
-    # (stream/block_adaptive.py iter_cap).
+    # Status: validated option, default OFF — splitting the fused
+    # while_loop into three adds round trips of the working set; the
+    # shipped straggler answer is the block plan's iteration cap
+    # (stream/block_adaptive.py iter_cap).  Not measured on the H100.
     split_iter: int = 0
     split_frac: float = 0.125
 
@@ -228,9 +220,8 @@ def snmf_solve(v: jnp.ndarray, w0: jnp.ndarray, h0: jnp.ndarray,
         else:
             # fixed-iteration mode: the cost is pure convergence-test
             # machinery, and it is NOT free — the KL term's log alone is a
-            # full VPU pass over (m, n) every trip (measured 17% of the
-            # H-solve loop at production shapes).  Skip it; the final
-            # div/cost are computed once after the loop.
+            # full elementwise pass over (m, n) every trip.  Skip it; the
+            # final div/cost are computed once after the loop.
             cost, done = last_cost, jnp.asarray(False)
         return it + 1, w, h, lamb, cost, done
 
@@ -246,10 +237,8 @@ def snmf_solve(v: jnp.ndarray, w0: jnp.ndarray, h0: jnp.ndarray,
     it, w, h, lamb, cost, _ = lax.while_loop(cond, body, init)
     if not need_stats:
         # factor-only callers (the engines' H-solves and refits use only
-        # res.h / res.w): skip the final divergence — a full (m, n) VPU
-        # pass incl. a log, pure reporting.  Measured on the block plan's
-        # vmapped per-block refits (v5e): part of a 6 ms/call tail the
-        # r3 "refits are free" ablation missed (BASELINE.md r4 budget).
+        # res.h / res.w): skip the final divergence — a full (m, n)
+        # elementwise pass incl. a log, pure reporting.
         zero = jnp.zeros((), v.dtype)
         return SnmfResult(w=w, h=h, iters=it, div=zero, cost=zero)
     div = _divergence(v, lamb, beta)
@@ -332,17 +321,16 @@ def snmf_h_solve_columns_split(v: jnp.ndarray, w_shared: jnp.ndarray,
                                h0_head: jnp.ndarray, params: SnmfParams
                                ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """``snmf_h_solve_columns`` with the basis split into a SHARED part and
-    a per-problem HEAD part — the MXU-tiling form of the block plan's
+    a per-problem HEAD part — the wide-GEMM form of the block plan's
     H-solve (stream/block_adaptive.py ``split_solve``).
 
-    Motivation (measured on v5e): under ``vmap`` over a B-utterance batch,
-    the fused solve's GEMMs are per-lane batched matmuls with N = K block
-    columns (K=44 in the headline plan).  The MXU pads N to 128, so ~2/3
-    of every tile is dead work.  But only the ADAPTED head columns
+    Motivation: under ``vmap`` over a B-utterance batch, the fused solve's
+    GEMMs are per-lane batched matmuls with only N = K block columns,
+    narrow for a matrix unit.  But only the ADAPTED head columns
     (``state.b_d_head``, r_a=50 of r=200) differ between lanes — the
     speech basis and the noise tail are lane-invariant.  Passing them as
     an unbatched ``w_shared`` lets vmap emit ONE unbatched-lhs contraction
-    with N = B*K columns (near-perfect tiling) for 75% of the FLOPs; only
+    with N = B*K columns for 75% of the FLOPs; only
     the r_a head GEMMs stay per-lane batched.
 
     Exactness: dmh rows split bit-exactly (row i of W^T u depends only on
@@ -497,8 +485,8 @@ def snmf_h_solve_columns(v: jnp.ndarray, w: jnp.ndarray, h0: jnp.ndarray,
             else:
                 # fixed-iteration mode: the per-column cost exists only to
                 # drive early stopping — skipping it drops a full (m, n)
-                # VPU pass incl. a log per trip (measured 17% of the loop
-                # at F=513 r=200 n=22k); final div/cost computed post-loop
+                # elementwise pass incl. a log per trip; final div/cost
+                # computed post-loop
                 cost = last_cost
             return it + 1, h, lamb, cost, active
 

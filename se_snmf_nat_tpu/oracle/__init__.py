@@ -1,5 +1,5 @@
 """Float64 NumPy oracle — an exact-semantics model of the reference MATLAB
-pipeline, used as the ground truth for testing the TPU implementation.
+pipeline, used as the ground truth for testing the JAX implementation.
 
 This is NOT the production path: it is sequential, dynamically shaped, and
 deliberately mirrors the reference's quirks (legacy rand streams, column

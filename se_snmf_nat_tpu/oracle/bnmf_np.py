@@ -2,7 +2,7 @@
 (bnmf/enhance.py) — the x64 parity oracle.
 
 Plain Python loops over frames and VB iterations, no JAX: gates that the
-TPU pipeline's restructuring (lax.scan frame loop, lax.cond refit gate,
+JAX pipeline's restructuring (lax.scan frame loop, lax.cond refit gate,
 fixed-shape ring buffers, masked buffer statistics) is semantically a
 no-op.  The VB block-update equations are deliberately re-implemented
 here in plain NumPy (only the backend-generic ``digamma`` is shared) so

@@ -1,14 +1,14 @@
 """Multi-host initialization and cross-host statistic merging.
 
 The reference is single-process; its only cross-run channel is B_D_u.mat on
-disk (SURVEY §5).  The TPU framework's multi-host story:
+disk (SURVEY §5).  This framework's multi-host story:
 
   * ``init_multihost()`` — jax.distributed.initialize() wrapper (no-op on a
     single process) so campaigns scale to multi-host slices with per-host
     file sharding;
   * ``shard_files_for_host()`` — deterministic round-robin split of a
-    campaign's file list across hosts (file-level DP over DCN; each host's
-    chips batch utterances over ICI);
+    campaign's file list across hosts (file-level DP between hosts; each
+    host's devices batch utterances);
   * ``merged_dictionary_state()`` — psum/mean-merge of per-shard adapted
     dictionary heads, the in-memory replacement for the reference's
     unlocked B_D_u.mat read-modify-write race.

@@ -1,7 +1,7 @@
 """Device-mesh and sharding helpers.
 
 The reference has no distribution at all (single MATLAB process; shared
-state via .mat files — SURVEY §2.7).  The TPU framework scales two ways:
+state via .mat files — SURVEY §2.7).  This framework scales two ways:
 
 * data parallelism — utterance batches sharded over the 'data' axis for
   enhancement, spectrogram frames sharded over 'data' for training;

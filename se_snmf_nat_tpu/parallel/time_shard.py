@@ -18,7 +18,7 @@ measure both).
 Mechanics: shard_map over the mesh 'data' axis; each device runs the SAME
 jitted per-shard scan (engine step + masked validity), so the compiled
 executable is shared and the only communication is the host-side gather of
-outputs — zero collectives in the hot loop, ICI untouched.
+outputs — zero collectives in the hot loop.
 """
 
 from __future__ import annotations
@@ -49,9 +49,9 @@ def enhance_time_sharded(enhancer, x: np.ndarray, mesh: Mesh, *,
     reused); x: int16-scale samples.  Returns the enhanced samples with the
     same emit trim as the sequential path.
 
-    Halo default (r5): 384 frames.  The r5 sweep
-    (experiments/time_shard_halo_sweep_out.json, 8 shards, f32, adaptation
-    on) measured golden corr vs halo on both fixtures:
+    Halo default: 384 frames.  A sweep on the previous accelerator (8
+    shards, f32, adaptation on) measured golden corr vs halo on both
+    fixtures:
 
         halo      64      128     192     256     384   (gate .993)
         M03     .99288  .99231  .99720  .99704  .99686

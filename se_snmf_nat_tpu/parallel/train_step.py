@@ -10,7 +10,7 @@ written with shard_map over a ('data', 'model') mesh:
 
 The H update is embarrassingly parallel in T.  The W update needs the
 T-contractions  (V/Λ)Hᵀ  and the column sums of H — those are psum'd over
-'data' (sufficient-statistic merges over ICI; the only cross-chip traffic,
+'data' (sufficient-statistic merges; the only cross-device traffic,
 2·F·R floats per step).  Normalization coupling terms are computed on the
 merged statistics so the result is identical to the single-chip update.
 """

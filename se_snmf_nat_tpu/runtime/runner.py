@@ -7,7 +7,7 @@ dictionary through consecutive files via B_D_u, emit progress lines.
 Two execution plans:
   * sequential (reference semantics): files in order, dictionary state
     chained file-to-file (run_ntf_sep_RT.m:28-38,136-139);
-  * batched (TPU-native DP): utterances padded and vmapped in batches,
+  * batched (data-parallel): utterances padded and vmapped in batches,
     each starting from the same initial state — higher throughput, with
     the cross-file chaining documented as off (SURVEY §7.3).
 """
@@ -54,9 +54,9 @@ class BatchRunner:
         # length_sort (batch path only): chunk files in ascending size
         # order so each batched call pads to a chunk-LOCAL maximum —
         # heterogeneous directories otherwise pad every chunk to whatever
-        # long file landed in it (measured on a synthetic 2-12 s 80-file
-        # set: padding waste drops ~3x and distinct compiled widths stay
-        # bounded by the length distribution, CAMPAIGN_r04.json).  Purely
+        # long file landed in it (on a synthetic 2-12 s 80-file set padding
+        # waste dropped ~3x and distinct compiled widths stayed bounded by
+        # the length distribution).  Purely
         # an iteration-order change: per-file outputs are identical (lane
         # independence is x64-gated), and file writes keep their names.
         self.length_sort = bool(length_sort)

@@ -1,11 +1,12 @@
 """TCP streaming-enhancement server: multi-tenant serving on one chip.
 
 The reference's only live-serving story is one stream per MATLAB process
-(SE_GUI.m mic loop).  Here one server process owns the TPU client (the
-platform allows exactly one) and multiplexes N concurrent network streams
+(SE_GUI.m mic loop).  Here one server process owns the device (a second
+JAX process would find the card's memory reserved) and multiplexes N
+concurrent network streams
 onto the lockstep MultiStreamSession fleet (stream/serving.py): every hop
 tick runs ONE vmapped device call for all lanes, so the per-dispatch cost
-is paid once per fleet and the MXU sees fleet-wide GEMM batches.
+is paid once per fleet and the matrix units see fleet-wide GEMM batches.
 
 Protocol (per connection):
   server -> client   one JSON header line:
@@ -82,8 +83,8 @@ class EnhanceServer:
                  sub_fleets: int = 1):
         from se_snmf_nat_tpu.stream.serving import (MultiStreamSession,
                                                     ShardedFleet)
-        # transfer-optimal samples wire by default (SERVING_r03: 2x the
-        # fleet of the frames wire; per-lane lifecycle — reset, drain,
+        # transfer-optimal samples wire by default (per-lane lifecycle —
+        # reset, drain,
         # flush — falls back transparently); the block-adaptive serving
         # mode still requires the frames wire
         if wire is None:

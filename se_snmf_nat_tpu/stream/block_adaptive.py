@@ -3,7 +3,7 @@ refits.
 
 The exact adaptive scan refits the noise dictionary up to once per frame
 (engine :293-346), which serializes every frame's H-solve behind the
-previous frame's refit.  This plan trades refit granularity for MXU
+previous frame's refit.  This plan trades refit granularity for matrix-unit
 utilization: within a block of K frames the dictionary is frozen, so the
 K activation solves batch into one (R,F)@(F,K) GEMM solve; ring pushes,
 triggers and the gain chain run in a cheap inner scan; at the block
@@ -75,8 +75,8 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
     ((state, ring_ptr), xm_tilde_seq) shared by the offline plan and the
     streaming session.
 
-    ``_knockout`` is an INSTRUMENTATION hook for the budget harness
-    (experiments/block_budget_r5.py), not a product knob: 'refit' skips
+    ``_knockout`` is an INSTRUMENTATION hook for a time-budget harness,
+    not a product knob: 'refit' skips
     the per-block refit cond entirely, 'q' forces the Q=1 path (which
     constant-folds the triggers off, eliminating the ring/refit machinery
     downstream — it measures the whole trigger complex, not the Q stat),
@@ -119,7 +119,7 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
     # split_solve: the H-solve's basis splits into the lane-invariant part
     # (speech basis + non-adapted noise tail) and the per-lane adapted head
     # (state.b_d_head) so vmap emits one big shared GEMM over B*K columns
-    # instead of B per-lane GEMMs MXU-padded from K to 128 columns — see
+    # instead of B narrow per-lane GEMMs of K columns — see
     # snmf_h_solve_columns_split.  Rows of h reorder to [shared; head] for
     # the solve and reassemble to the engine's [x; head; tail] order after.
     if split_solve and r_a <= 0:
@@ -146,8 +146,7 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
         max_iter=eff_max_iter, conv_eps=cfg.nmf.conv_eps, flr=1e-9,
         precision=cfg.runtime.matmul_precision)
     # refit_iter_cap: separate (tighter) cap for the per-block dictionary
-    # refit W-solve.  Measured at production shapes (K=48, B=64, v5e):
-    # SPEED-NEUTRAL (8889-8905 au-s/s across caps 0/24/16/12 — the refit
+    # refit W-solve.  Speed-neutral on the previous accelerator (the refit
     # while_loops already exit early on their per-column relative-cost
     # tests, unlike the straggler-bound H-solves) and quality-invariant
     # down to cap 16 (golden corr .9925/.9940 identical to uncapped;
@@ -160,11 +159,9 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
     # refit_fixed (opt-in, requires refit_iter_cap): FIXED-iteration refit
     # W-solves, the same trade the H-solves' fixed_iter makes.  Why it pays
     # HERE despite refits converging early: the early stop's per-trip KL
-    # cost pass is a (F, m_a) log pass per trip per lane, and the r4
-    # knockout decomposition measured the whole refit branch at ~6 ms of
-    # the 19.2 ms headline call (31%) — the r3 ar_up ablation that
-    # concluded "refits are free" only removed the MU trips, not the
-    # surrounding per-trip cost passes and entry/exit work.  Trajectories
+    # cost pass is a (F, m_a) log pass per trip per lane, and the whole
+    # refit branch (entry, per-trip cost passes, exit) is not free even
+    # when the MU trips are.  Trajectories
     # change (solves run to the cap), so golden quality re-gates the
     # option (bench --pareto rows).
     if refit_fixed:
@@ -173,11 +170,11 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
         params_refit = _dc.replace(params_refit, conv_eps=0.0)
     # fixed_iter (opt-in, requires a cap): drop the per-column early stop
     # from the H-SOLVES (conv_eps=0) so the solver also skips the per-trip
-    # KL cost — a full VPU pass over (F, K) incl. a log, 17% of the loop
+    # KL cost — a full elementwise pass over (F, K) incl. a log
     # (nmf/solver.py cost-skip).  The GEMM count per trip is unchanged
     # (frozen columns were masked, not cheaper); trajectories differ
     # (columns that froze early now update to the cap), so the quality
-    # gates decide — PARETO_r03 measures it.  Refits KEEP the early stop:
+    # gates decide.  Refits KEEP the early stop:
     # their while_loops genuinely exit early (see refit_iter_cap note),
     # so fixed-iteration would make them slower, not faster.
     if fixed_iter and eff_max_iter < cfg.nmf.max_iter:
@@ -385,18 +382,14 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
         pos = jnp.where(keep, (ring_ptr + rank) % m_a,
                         jnp.asarray(m_a, jnp.int32))
         # ring push and chronological roll as ONE-HOT GEMMs at HIGHEST
-        # precision instead of scatter / dynamic roll (r5): the q-knockout
-        # budget put ~2.9 ms of the 14.2 ms call in this trigger/ring
-        # machinery, and TPU column scatters + dynamic gathers over the
-        # (F, m_a)/(r_a, m_a) rings are its cost.  A 0/1-selection matmul
-        # is VALUE-EXACT here even through the MXU *at HIGHEST*: each
-        # output column sums exactly one nonzero product a*1, and the
-        # 3-way bf16 split of a f32 (8+8+8 mantissa bits) recomposes a
-        # exactly while 1.0 is bf16-exact.  HIGH (2-way split) is NOT
-        # exact — measured corr moved .9957 -> .9960 on LM from the lost
-        # low bits perturbing the ring trajectory; HIGHEST restores the
-        # scatter form's values bit-for-bit at the same speed (these
-        # matmuls are ~5 MMAC, latency-bound either way).
+        # precision instead of scatter / dynamic roll: column scatters and
+        # dynamic gathers over the (F, m_a)/(r_a, m_a) rings were slow on
+        # the previous accelerator.  A 0/1-selection matmul is VALUE-EXACT
+        # at HIGHEST: each output column sums exactly one nonzero product
+        # a*1, and HIGHEST keeps a's full f32 mantissa (on the H100 it is
+        # an fp32 product; HIGH and DEFAULT are TF32 there and are NOT
+        # exact).  Whether the scatter form is faster on the H100 is not
+        # measured.
         slot = jnp.arange(m_a, dtype=jnp.int32)
         onehot = (pos[:, None] == slot[None, :]).astype(dtype)   # (K, m_a)
         written = jnp.any(pos[:, None] == slot[None, :], axis=0)
@@ -474,10 +467,9 @@ def make_block_adaptive_run(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
     dft_precision / idft_precision override the matmul-transform precision
     per direction (None = dsp/stft module defaults).  The production plan
     (headline.py) runs analysis at 'high' and synthesis at 'default': analysis
-    rounding is amplified through the NMF solver trajectory (measured
-    -.0009 golden corr at 'default'), synthesis rounding adds only linear
-    noise to an output whose golden residual is ~9% rel (corr unchanged,
-    PARETO_r04 asymmetric rows)."""
+    rounding is amplified through the NMF solver trajectory (-.0009 golden
+    corr at 'default'), synthesis rounding adds only linear noise to an
+    output whose golden residual is ~9% rel."""
     s = cfg.signal
     block_step = make_block_step(cfg, b1_x, b1_d, b2_x, b2_d, dtype, k_block,
                                  iter_cap, refit_iter_cap,

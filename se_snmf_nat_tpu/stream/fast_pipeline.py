@@ -9,7 +9,7 @@ cheap elementwise gain recurrences — so this plan:
 
   1. batched STFT for the whole utterance (and batch);
   2. ONE nmf.snmf_h_solve_columns call over ALL frames — the per-frame
-     513x200 GEMVs become (200,513)@(513,T*B) MXU GEMMs with per-column
+     513x200 GEMVs become (200,513)@(513,T*B) GEMMs with per-column
      early stopping, numerically identical to the sequential solves;
   3. reconstructions as two big GEMMs;
   4. the block-sparsity statistic Q for ALL frames in one banded-GEMM
@@ -73,13 +73,10 @@ def make_fast_run(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
         melmat = jnp.asarray(
             mel_matrix(s.fs, s.f_order, s.fftlength, 1.0, s.fs / 2).T, dtype)
 
-    # NOTE: two-phase straggler compaction (SnmfParams.split_iter) was
-    # measured HERE and LOSES: 7652 -> 6403 au-s/s at B=64 on the v5e
-    # (split 16 and 32 both) despite cutting column-iterations ~2.5x — the
-    # phase boundary splits XLA's single fused while_loop into three, and
-    # the extra HBM round-trips of the (B, F, T) working set outweigh the
-    # straggler tail.  Same verdict as kernels/mu_pallas.py: kept as a
-    # validated option (bit-exact, tests/test_nmf.py), default off.
+    # two-phase straggler compaction (SnmfParams.split_iter) is a validated
+    # option (bit-exact, tests/test_nmf.py), default off: splitting the
+    # solver's single while_loop into three adds round trips of the
+    # (B, F, T) working set.  Not measured on the H100.
     params = SnmfParams(
         beta=cfg.nmf.beta, sparsity=float(cfg.nmf.sparsity),
         max_iter=cfg.nmf.max_iter, conv_eps=cfg.nmf.conv_eps, flr=1e-9,

@@ -1,8 +1,8 @@
-"""Dictionary training: the TPU re-design of run_basis_train.m.
+"""Dictionary training: the JAX re-design of run_basis_train.m.
 
 Feature assembly runs on the host (NumPy); the sparse-NMF factorization —
 the offline hot loop (513 x ~72k KL MU iterations, SURVEY §3.4) — runs on
-device through nmf/solver.snmf_solve, whose GEMMs map straight onto the MXU.
+device through nmf/solver.snmf_solve, whose GEMMs map onto matrix units.
 Multi-chip training shards the frame axis through
 parallel/train_step.make_distributed_train_step.
 

@@ -1,6 +1,6 @@
 """Compiled-HLO collective audit (parallel/collectives_audit): regression
 gates on what each parallel program is allowed to move over the
-interconnect — the mechanism behind SCALING_r03.json's bytes table."""
+interconnect."""
 
 import numpy as np
 import jax
@@ -79,7 +79,7 @@ def test_dp_enhance_production_plan_collective_free(reference_bases,
     """The PRODUCTION DP batch program (dft_matmul=True, as headline.py)
     may move only the while-loop sync preds over the mesh (single BYTES
     per step) — data-parallel enhancement must never grow real
-    collectives.  This is a load-bearing property of the MXU-matmul DFT:
+    collectives.  This is a load-bearing property of the matmul DFT:
     matmul transforms partition over the lane axis like everything else,
     whereas GSPMD cannot shard the FFT over the batch axis (next test)."""
     x, _ = m03_wav

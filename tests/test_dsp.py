@@ -207,9 +207,8 @@ def test_pack_samples_for_upload():
 
 
 def test_dft_matmul_matches_fft():
-    """The MXU matmul transform path (dsp/stft.dft_matrices — the f32
-    production plans' fast path, 2x the XLA TPU rfft and measured CLOSER to
-    the float64 transform) agrees with the jnp.fft path to fp tolerance in
+    """The matmul transform path (dsp/stft.dft_matrices — the f32
+    production plans' transform) agrees with the jnp.fft path to fp tolerance in
     both directions, including preemphasis and dc handling."""
     rng = np.random.default_rng(3)
     win = jnp.asarray(sqrt_hann_periodic(640), jnp.float32)
@@ -247,8 +246,8 @@ def test_dft_matmul_precision_plumbing():
     — the headline plan runs analysis 'high' / synthesis 'default') must
     reach the transform without changing semantics.  On the CPU backend
     every matmul precision tier is the same f32 math, so all combos are
-    gated EXACTLY equal here; the on-TPU numeric difference is measured
-    and quality-gated by ``bench --pareto`` (PARETO_r04 asymmetric rows).
+    gated EXACTLY equal here; on the H100 'high' and 'default' are TF32
+    (chip_smoke.py device phase), which chip_smoke.py checks end to end.
     """
     rng = np.random.default_rng(7)
     win = jnp.asarray(sqrt_hann_periodic(640), jnp.float32)

@@ -63,6 +63,28 @@ def test_blk_sparse_matches_oracle():
         np.testing.assert_allclose(np.asarray(r_new), r_ref, atol=1e-15)
 
 
+def test_blk_sparse_f32_windows_of_tiny_values_stay_finite():
+    """f32 Q on a ring whose low bins are large and whose upper windows hold
+    values ~1e-6: window sums taken as differences of running cumsums
+    cancel below zero there and the L2 sqrt returned NaN, which then
+    poisoned the exact plan's whole output (seeded speech on the H100)."""
+    cfg = default_config()
+    f, p = cfg.signal.n_bins, cfg.blk.p_len_l
+    rng = np.random.default_rng(1)
+    r_blk = np.where(np.arange(f)[:, None] < 200, 1.0,
+                     1e-6 * (1.0 + rng.random((f, p))))
+    x = np.where(np.arange(f) < 200, 1.0, 1e-6) * (1.0 + rng.random(f))
+    d = np.ones(f)
+    q_ref, _ = blk_sparse_np(x[:, None], d[:, None], r_blk, 30, cfg)
+    q, _ = block_sparsity_q(
+        jnp.asarray(x, jnp.float32), jnp.asarray(d, jnp.float32),
+        jnp.asarray(r_blk, jnp.float32), jnp.asarray(30), n_bins=f,
+        p_len_k=cfg.blk.p_len_k, p_len_l=p, dc_bin=cfg.signal.dc_bin,
+        gap=cfg.blk.blk_gap, alpha_p=cfg.blk.alpha_p, nonzerofloor=1e-9)
+    assert np.isfinite(np.asarray(q)).all()
+    np.testing.assert_allclose(np.asarray(q), q_ref[:, 0], atol=1e-4)
+
+
 def test_blk_sparse_block_batch_matches_sequential():
     """The block plan's whole-block Q (banded-GEMM window sums,
     make_block_sparsity_q_block) must reproduce the sequential shift-ring

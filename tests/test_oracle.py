@@ -60,7 +60,7 @@ def _block_plan_output(x, reference_bases, k_block, dft_matmul=False):
     speech, noise = reference_bases
     if k_block == "headline":
         # the FULL production configuration (headline.py: K/cap/bucket
-        # Pareto pick + MXU-matmul DFT) — exactly what bench.py measures
+        # Pareto pick + matmul DFT) — exactly what bench.py measures
         from se_snmf_nat_tpu.headline import build_headline_enhancer
         return build_headline_enhancer().enhance(x)
     # bucket must be a K multiple — padding frames are inert, so the
@@ -87,8 +87,7 @@ def test_block_plan_matches_golden_m03(reference_bases, m03_wav, m03_golden,
     just the float64 oracle: 'headline' is the full bench.py production
     point (headline.py), K=16 the quality-identical-to-exact point (r2
     sweep, bench.py).  The headline point must clear the gate with >=0.003
-    margin (PARETO_r03.json policy: one quality wobble must not turn the
-    suite red).  Prefix exactness is not gated: the block plan's adaptation
+    margin (one quality wobble must not turn the suite red).  Prefix exactness is not gated: the block plan's adaptation
     lags up to K frames by design (stream/block_adaptive.py docstring)."""
     x, _ = m03_wav
     ref, _ = m03_golden

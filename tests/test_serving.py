@@ -269,8 +269,7 @@ def test_fleet_dft_matmul_matches_single(enh, m03_wav):
     # tier is the same native math — here f64 under the x64 conftest), so
     # value-identity with the run above holds REGARDLESS of whether the
     # sessions actually read the knobs; the structural propagation is
-    # asserted directly below instead, and the on-TPU numeric effect is
-    # measured/gated by bench --pareto (PARETO_r04 asymmetric rows).
+    # asserted directly below instead.
     enh_hp = SnmfEnhancer(enh.cfg, *enh._bases, dtype=enh.dtype,
                           matlab_ad_blk_init=False, dft_matmul=True,
                           dft_precision="high", idft_precision="default")

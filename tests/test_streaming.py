@@ -99,7 +99,7 @@ def test_block_adaptive_streaming_equals_offline_plan(enh, m03_wav):
 @pytest.mark.slow
 def test_dft_matmul_propagates_to_streaming(enh, m03_wav):
     """An enhancer built with dft_matmul=True must stream through the SAME
-    MXU-matmul transform it uses offline (review finding: the sessions
+    matmul transform it uses offline (review finding: the sessions
     previously fell back to jnp.fft, silently breaking the documented
     streaming-vs-offline bit-identity for that opt-in configuration)."""
     import jax.numpy as _jnp
