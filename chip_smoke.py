@@ -20,16 +20,20 @@ Phases, one JSON line each:
   exact    the exact scan plan against the float64 NumPy oracle, at the
            default matmul precision and at HIGHEST;
   serve    ``EnhanceServer`` with three client threads against solo
-           ``StreamingSession`` runs;
-  pmwf     ``enhance --algorithm pmwf`` on a seeded 6-channel scene;
+           ``StreamingSession`` runs, gated at HIGHEST and printed at the
+           default precision;
+  pmwf     ``enhance --algorithm pmwf`` and ``PmwfStreamingSession`` on a
+           seeded 6-channel scene, and the covariance window sum's smallest
+           eigenvalue at TF32 and fp32;
   timings  the phasor-matmul DFT against ``jnp.fft`` (cuFFT), and the
            batched H-solve at the bench shape.
 With ``--four-cards``: the block plan's batch sharded over a 4-card 'data'
 mesh, the psum training step and time sharding, each against its one-card
 run.
 
-Any failure raises: the script exits non-zero and prints no ``ok`` line.
-The last line is ``{"ok": true, "device": {...}}``.
+Every phase line carries ``card``: the card's name and power limit as
+``nvidia-smi`` reports them.  Any failure raises: the script exits non-zero
+and prints no ``ok`` line.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,14 +57,19 @@ WORK = CHECKOUT / ".chip_smoke"
 CORR_GATE = 0.99        # the repo's golden-wav gate (tests/test_oracle.py)
 PREFIX_SAMPLES = 5500   # ~0.34 s before the first refit (test_oracle.py)
 PREFIX_LSB = 16         # the oracle-vs-golden prefix bound (test_oracle.py)
+SERVE_LSB = 4           # fleet vs solo prefix at HIGHEST: int16 rounding
 PMWF_GAIN_DB = 10.0     # offline PMWF gate (test_multichannel_streaming.py)
+PMWF_STREAM_GAIN_DB = 7.0   # streaming PMWF gate (same test)
 TRAIN_STEP_RTOL = 1e-4  # fp32 psum order over 20 HIGHEST-precision MU steps
 TIME_SHARD_CORR = 0.98  # halo warm-up with adaptation on (test_time_shard.py)
 TF32_REL_ERR = 1e-5     # fp32 keeps ~1e-7 over K=200; TF32 ~1e-4
 
 
+CARD = ""                # "name, power limit" from nvidia-smi, set in main
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -155,7 +164,7 @@ def phase_train(seed: int, seconds: float = 24.0, n_files: int = 6):
         t0 = time.perf_counter()
         rc = cli_main(["train", "--db", str(WORK / "train" / cls),
                        "--basis-dir", str(WORK / "basis" / cls),
-                       "--rank", "100", "--force"])
+                       "--rank", "100", "--seed", str(seed), "--force"])
         walls[cls] = time.perf_counter() - t0
         check(rc == 0, f"train {cls} rc {rc}")
         pair = load_basis(WORK / "basis" / cls / "R_100.npz")
@@ -163,8 +172,10 @@ def phase_train(seed: int, seconds: float = 24.0, n_files: int = 6):
         check(bool(np.isfinite(pair.b_dft).all()
                    and (pair.b_dft >= 0).all()), f"{cls} basis not >= 0")
         bases[cls] = pair
-    emit("train", seconds_of_audio_per_class=seconds,
-         wall_s=walls, b_dft_shape=[513, 100])
+    emit("train", seed=seed, seconds_of_audio_per_class=seconds,
+         wall_s=walls, b_dft_shape=[513, 100],
+         b_dft_sum={k: float(v.b_dft.astype(np.float64).sum())
+                    for k, v in bases.items()})
     return bases["speech"], bases["noise"]
 
 
@@ -279,7 +290,17 @@ def _client(port: int, x: np.ndarray) -> np.ndarray:
 
 def phase_serve(seed: int, speech, noise, n_clients: int = 3,
                 seconds: float = 3.0, lanes: int = 4, block: int = 8) -> None:
-    """EnhanceServer under client threads against solo sessions."""
+    """EnhanceServer under client threads against solo sessions.
+
+    Gated at HIGHEST, where the fleet's batched and the session's
+    single-lane fp32 GEMMs differ only in summation order: before the
+    first refit each client must match its solo session to int16 rounding,
+    which a lane that reads another lane's audio or state cannot, and the
+    whole clip keeps the golden corr gate.  Past the first refit the
+    adaptation's threshold tests can turn on a summation-order difference
+    (on the CPU backend a client with seeded dictionaries ends 145 LSB from
+    its solo session), so the whole-clip LSB is printed, not gated.  The
+    shipped default precision (TF32) is printed beside it, ungated."""
     from dataclasses import replace
 
     import jax
@@ -293,49 +314,96 @@ def phase_serve(seed: int, speech, noise, n_clients: int = 3,
 
     clips = noisy_clips(seed + 2, n_clients, seconds, seconds)
     sb, nb = speech.b_dft, noise.b_dft
-    # fp32 products: this compares lane isolation and the wire, not
-    # precision.  At TF32 the fleet's batched and the session's single-lane
-    # GEMMs round differently, and the adaptation gates amplify that.
-    cfg = default_config()
-    cfg = cfg.evolve(runtime=replace(cfg.runtime, matmul_precision="highest"))
-    enh = SnmfEnhancer(cfg, sb, nb, sb, nb, dtype=jnp.float32)
 
-    async def run():
-        srv = await EnhanceServer(enh, n_lanes=lanes,
-                                  block_frames=block).start()
-        try:
-            return await asyncio.gather(*[
-                asyncio.to_thread(_client, srv.port, x) for x in clips])
-        finally:
-            await srv.stop()
+    def serve_vs_solo(prec: str):
+        cfg = default_config()
+        cfg = cfg.evolve(runtime=replace(cfg.runtime, matmul_precision=prec))
+        enh = SnmfEnhancer(cfg, sb, nb, sb, nb, dtype=jnp.float32)
 
-    t0 = time.perf_counter()
-    with jax.default_matmul_precision("highest"):
-        got = asyncio.run(run())
-    wall = time.perf_counter() - t0
-    rows = []
-    for x, y in zip(clips, got):
-        sess = StreamingSession(enh, block_frames=block)
-        with jax.default_matmul_precision("highest"):
-            want = np.concatenate([sess.push(x.astype(np.float64)),
-                                   sess.flush()]).astype(np.int16)
-        check(len(y) == len(want), f"serve length {len(y)} != {len(want)}")
-        rows.append({"corr": corr(y, want), "max_abs_lsb": max_lsb(y, want)})
+        async def run():
+            srv = await EnhanceServer(enh, n_lanes=lanes,
+                                      block_frames=block).start()
+            try:
+                return await asyncio.gather(*[
+                    asyncio.to_thread(_client, srv.port, x) for x in clips])
+            finally:
+                await srv.stop()
+
+        with jax.default_matmul_precision(prec):
+            t0 = time.perf_counter()
+            got = asyncio.run(run())
+            wall = time.perf_counter() - t0
+            rows = []
+            for x, y in zip(clips, got):
+                sess = StreamingSession(enh, block_frames=block)
+                want = np.concatenate([sess.push(x.astype(np.float64)),
+                                       sess.flush()]).astype(np.int16)
+                check(len(y) == len(want),
+                      f"serve length {len(y)} != {len(want)}")
+                rows.append({"corr": corr(y, want),
+                             "prefix_max_abs_lsb": max_lsb(
+                                 y[:PREFIX_SAMPLES], want[:PREFIX_SAMPLES]),
+                             "max_abs_lsb": max_lsb(y, want)})
+        return {"wall_s": wall, "vs_solo_session": rows}
+
+    gated = serve_vs_solo("highest")
+    shipped = serve_vs_solo("default")
     emit("serve", lanes=lanes, block_frames=block, clients=n_clients,
-         seconds_each=seconds, wall_s=wall, vs_solo_session=rows,
-         gate=f"corr >= {CORR_GATE}")
-    check(min(r["corr"] for r in rows) >= CORR_GATE, f"serve {rows}")
+         seconds_each=seconds, highest=gated, default_ungated=shipped,
+         gate=f"at highest: prefix[:{PREFIX_SAMPLES}] <= {SERVE_LSB} LSB, "
+              f"corr >= {CORR_GATE}")
+    for r in gated["vs_solo_session"]:
+        check(r["corr"] >= CORR_GATE
+              and r["prefix_max_abs_lsb"] <= SERVE_LSB, f"serve {gated}")
+
+
+def _min_eig_over_trace(x: np.ndarray, m_nbr: int, l_nbr: int) -> dict:
+    """Smallest eigenvalue over trace of the PSD window sum of
+    ``multichannel/streaming.window_cov``, over every bin of every full
+    window, with the outer products at DEFAULT (TF32 here) and HIGHEST."""
+    import jax
+    import jax.numpy as jnp
+
+    from se_snmf_nat_tpu.config import default_config
+    from se_snmf_nat_tpu.dsp.stft import stream_frames
+    from se_snmf_nat_tpu.dsp.windows import sqrt_hann_periodic
+
+    s = default_config().signal
+    fr = np.stack([stream_frames(ch, s.framelength, s.frameshift, n_flush=0)
+                   for ch in np.asarray(x, np.float64)])      # (C, T, L)
+    spec = np.fft.rfft(fr * sqrt_hann_periodic(s.framelength), s.fftlength)
+    y = jnp.asarray(np.moveaxis(spec, 1, 2), jnp.complex64)    # (C, F, T)
+    f = y.shape[1]
+    interior = (jnp.arange(f) >= m_nbr) & (jnp.arange(f) < f - m_nbr)
+    ystack = jnp.stack([jnp.where(interior[None, :, None],
+                                  jnp.roll(y, -dm, axis=1), y)
+                        for dm in range(-m_nbr, m_nbr + 1)])  # (M, C, F, T)
+    out = {}
+    for name, prec in (("default", jax.lax.Precision.DEFAULT),
+                       ("highest", jax.lax.Precision.HIGHEST)):
+        r = jax.jit(lambda a, p=prec: jnp.einsum(
+            "mcft,mdft->tfcd", a, jnp.conj(a), precision=p))(ystack)
+        r = np.asarray(r, np.complex128)
+        n_win = r.shape[0] - 2 * l_nbr
+        win = sum(r[k:k + n_win] for k in range(2 * l_nbr + 1))
+        win = (win + np.conj(np.swapaxes(win, -1, -2))) / 2
+        eig = np.linalg.eigvalsh(win)
+        tr = np.trace(win, axis1=-2, axis2=-1).real
+        live = tr > 0
+        out[name] = float((eig[..., 0][live] / tr[live]).min())
+    return out
 
 
 def phase_pmwf(seed: int, n: int = 24000) -> None:
-    """The 6-channel beamformer through the CLI."""
+    """The 6-channel beamformer: offline through the CLI, and streaming."""
     import jax.numpy as jnp
 
     from se_snmf_nat_tpu.cli import main as cli_main
     from se_snmf_nat_tpu.io.wavio import read_wav_int16
     from se_snmf_nat_tpu.multichannel.fixture import (segsnr_vs_source,
                                                       synth_mixture)
-    from se_snmf_nat_tpu.multichannel.pmwf import PmwfEnhancer
+    from se_snmf_nat_tpu.multichannel.pmwf import PmwfEnhancer, PmwfParams
+    from se_snmf_nat_tpu.multichannel.streaming import PmwfStreamingSession
 
     x, src = synth_mixture(n=n, n_ch=6, seed=seed)
     path_in, path_out = WORK / "pmwf" / "in.wav", WORK / "pmwf" / "out.wav"
@@ -347,13 +415,37 @@ def phase_pmwf(seed: int, n: int = 24000) -> None:
     y = np.atleast_2d(y)
     floats = PmwfEnhancer(dtype=jnp.float32).enhance(x, quantize=False)
     check(bool(np.isfinite(floats).all()), "PMWF output has NaN/inf")
+
+    sess = PmwfStreamingSession(n_ch=x.shape[0], block_frames=8,
+                                dtype=jnp.float32)
+    hop = 1600                                  # 100 ms pushes
+    ys = [sess.push(x[:, i:i + hop], quantize=False)
+          for i in range(0, x.shape[1], hop)]
+    ys = np.concatenate(ys + [sess.flush(quantize=False)], axis=1)
+    check(bool(np.isfinite(ys).all()), "streaming PMWF output has NaN/inf")
+
+    # perfectly coherent channels (rolled copies of one): the case that
+    # left a reduced-precision covariance indefinite
+    coh = np.stack([np.roll(x[0], 977 + 31 * c) for c in range(x.shape[0])])
+    y_coh = PmwfEnhancer(dtype=jnp.float32).enhance(coh, quantize=False)
+    check(bool(np.isfinite(y_coh).all()), "coherent PMWF output has NaN/inf")
+
+    p = PmwfParams()
     seg_in = max(segsnr_vs_source(x[j], src) for j in range(x.shape[0]))
     seg_out = segsnr_vs_source(y[0], src)
+    seg_str = segsnr_vs_source(ys[0], src)
     emit("pmwf", channels=int(x.shape[0]), seg_snr_in_db=seg_in,
          seg_snr_out_db=seg_out, gain_db=seg_out - seg_in,
-         gate=f"gain >= {PMWF_GAIN_DB} dB")
+         streaming_seg_snr_out_db=seg_str, streaming_gain_db=seg_str - seg_in,
+         cov_min_eig_over_trace={
+             "scene": _min_eig_over_trace(x, p.m_nbr, p.l_nbr),
+             "coherent": _min_eig_over_trace(coh, p.m_nbr, p.l_nbr)},
+         gate=f"offline gain >= {PMWF_GAIN_DB} dB, streaming gain >= "
+              f"{PMWF_STREAM_GAIN_DB} dB, both finite")
     check(seg_out - seg_in >= PMWF_GAIN_DB,
           f"PMWF gain {seg_out - seg_in:.2f} dB")
+    check(seg_str - seg_in >= PMWF_STREAM_GAIN_DB,
+          f"streaming PMWF gain {seg_str - seg_in:.2f} dB")
 
 
 def phase_timings(clips, speech, noise, tf32_default: bool,
@@ -579,6 +671,8 @@ def main(argv=None) -> int:
 
     from se_snmf_nat_tpu.runtime.hardware import enable_compile_cache
     enable_compile_cache()
+    global CARD
+    CARD = "; ".join(smi.splitlines())
     print(smi, flush=True)
     shutil.rmtree(WORK, ignore_errors=True)
     if args.four_cards:

@@ -109,7 +109,7 @@ def block_sparsity_q(xm: jnp.ndarray, dm: jnp.ndarray, r_blk: jnp.ndarray,
 
 def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
                                 p_len_l: int, dc_bin: int, gap: int,
-                                alpha_p: float, cumsum: bool = False):
+                                alpha_p: float):
     """Whole-block Q: all K frames' statistics in batched matmuls.
 
     Q has no sequential dependency — frame j's statistic reads only the
@@ -127,18 +127,9 @@ def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
 
     Requires gap >= 3 (the reference default), where the smoothing seed is
     the constant 0.1 (module docstring); gap < 3 callers must use the
-    sequential ``block_sparsity_q``.  Sum ORDER differs from the cumsum
-    formulation by f32 reduction LSBs — quality is re-gated against the
+    sequential ``block_sparsity_q``.  Sum ORDER differs from the sequential
+    window sums by f32 reduction LSBs — quality is re-gated against the
     golden fixtures, not assumed.
-
-    ``cumsum=True`` (a validated option, default off): both window sums
-    become PREFIX-SUM DIFFERENCES instead of banded-0/1 GEMMs —
-    rs[:, j] = cs[:, j+P] - cs[:, j] along time, and the frequency bands
-    gather two rows of a bin-axis cumsum.  88x fewer FLOPs on paper; it
-    ran slower than the GEMM form on the previous accelerator and is not
-    measured on the H100.  Math identical (1.5e-13 max diff at f64); at
-    f32 the forms differ by the GEMMs' input rounding (TF32 on the H100)
-    and by the prefix sums' cancellation.
 
     Returns ``q_block(snr_cols (K,F), r_ring (F,P), ls (K,), n_valid)
     -> (q (K,F), r_ring_new (F,P))`` where n_valid counts the block's
@@ -165,42 +156,16 @@ def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
     ci = np.clip(np.round((j - (ks[0] - 1)) / gap).astype(int), 0, len(ks) - 1)
     covered = np.abs(j - ks[ci] + 1) <= gap2
 
-    # static frequency-band edges for the cumsum form: band c sums bins
-    # [ks[c]-half, ks[c]+half-1] clipped to the array — exactly w_freq's
-    # in-range support
-    lo_f = np.clip(ks - half, 0, n_bins)
-    hi_f = np.clip(ks + half, 0, n_bins)          # exclusive upper edge
-
     def q_block(snr_cols: jnp.ndarray, r_ring: jnp.ndarray,
                 ls: jnp.ndarray, n_valid: jnp.ndarray):
         dtype = snr_cols.dtype
         ext = jnp.concatenate([r_ring, snr_cols.T], axis=1)    # (F, P+K)
-        if cumsum:
-            zero = jnp.zeros((ext.shape[0], 1), dtype)
-
-            def win_t(a):          # (F, P+K) -> (F, K) P-deep window sums
-                # frame j covers ext columns [j+1, j+P] (w_time above)
-                cs = jnp.concatenate([zero, jnp.cumsum(a, axis=1)], axis=1)
-                return (cs[:, p_len_l + 1: p_len_l + 1 + k_block]
-                        - cs[:, 1: 1 + k_block])
-
-            def win_f(a):          # (F, K) -> (K, C) band sums over bins
-                cs = jnp.concatenate(
-                    [jnp.zeros((1, a.shape[1]), dtype),
-                     jnp.cumsum(a, axis=0)], axis=0)
-                return (cs[hi_f] - cs[lo_f]).T
-
-            rs = win_t(ext)
-            rq = win_t(ext * ext)
-            l1 = win_f(rs)
-            l2 = jnp.sqrt(win_f(rq))
-        else:
-            wt = jnp.asarray(w_time, dtype)
-            wf = jnp.asarray(w_freq, dtype)
-            rs = ext @ wt                                      # (F, K)
-            rq = (ext * ext) @ wt
-            l1 = rs.T @ wf                                     # (K, C)
-            l2 = jnp.sqrt(rq.T @ wf)
+        wt = jnp.asarray(w_time, dtype)
+        wf = jnp.asarray(w_freq, dtype)
+        rs = ext @ wt                                          # (F, K)
+        rq = (ext * ext) @ wt
+        l1 = rs.T @ wf                                         # (K, C)
+        l2 = jnp.sqrt(rq.T @ wf)
         p_tmp = (sqrt_n - l1 / l2) / (sqrt_n - 1.0)
         p_val = alpha_p * 0.1 + (1.0 - alpha_p) * p_tmp
         q = jnp.where(jnp.asarray(covered)[None, :],

@@ -66,14 +66,13 @@ def spectro_temporal_cov(y: jnp.ndarray, m_nbr: int, l_nbr: int
         rolled = jnp.roll(y, -dm, axis=1)
         shifts.append(jnp.where(interior[None, :, None], rolled, y))
     ystack = jnp.stack(shifts, axis=0)             # (2M+1, C, F, T)
-    # per-frame frequency-neighborhood outer products — HIGH precision:
-    # bf16-rounded products leave this Hermitian sum INDEFINITE at ~1e-4
-    # relative (see streaming.window_cov note), which the downstream
-    # diagonally-loaded Cholesky cannot survive.  On the H100 'high' is
-    # TF32 (~2.5e-5 relative on an f32 product, chip_smoke.py device
-    # phase), and the smoke's 6-channel PMWF run stays NaN-free there
+    # per-frame frequency-neighborhood outer products in fp32 (HIGHEST):
+    # reduced-precision products leave this Hermitian sum INDEFINITE (see
+    # streaming.window_cov), which the downstream diagonally-loaded
+    # Cholesky cannot survive.  On the H100 DEFAULT and HIGH both run TF32
+    # (~2.5e-5 relative on an f32 product, chip_smoke.py device phase)
     r = jnp.einsum("mcft,mdft->tfcd", ystack, jnp.conj(ystack),
-                   precision=jax.lax.Precision.HIGH)
+                   precision=jax.lax.Precision.HIGHEST)
     # temporal box sum of width 2L+1 with edge clamping
     if l_nbr > 0:
         pad = jnp.pad(r, ((l_nbr, l_nbr), (0, 0), (0, 0), (0, 0)),

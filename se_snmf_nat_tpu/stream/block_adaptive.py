@@ -69,7 +69,7 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
                     dtype=jnp.float32, k_block: int = 16,
                     iter_cap: int = 0, refit_iter_cap: int = 0,
                     fixed_iter: bool = False, split_solve: bool = False,
-                    refit_fixed: bool = False, q_cumsum: bool = False,
+                    refit_fixed: bool = False,
                     _knockout: str | None = None):
     """The K-frame block step ((state, ring_ptr), (mag_blk, ls, ok)) ->
     ((state, ring_ptr), xm_tilde_seq) shared by the offline plan and the
@@ -191,7 +191,7 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
         q_block_fn = make_block_sparsity_q_block(
             k_block, n_bins=s.n_bins, p_len_k=blk.p_len_k,
             p_len_l=blk.p_len_l, dc_bin=s.dc_bin, gap=blk.blk_gap,
-            alpha_p=blk.alpha_p, cumsum=q_cumsum)
+            alpha_p=blk.alpha_p)
     blk_kwargs = dict(n_bins=s.n_bins, p_len_k=blk.p_len_k,
                       p_len_l=blk.p_len_l, dc_bin=s.dc_bin, gap=blk.blk_gap,
                       alpha_p=blk.alpha_p, nonzerofloor=flr)
@@ -457,7 +457,6 @@ def make_block_adaptive_run(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
                             fixed_iter: bool = False,
                             split_solve: bool = False,
                             refit_fixed: bool = False,
-                            q_cumsum: bool = False,
                             dft_precision: str | None = None,
                             idft_precision: str | None = None,
                             _knockout: str | None = None):
@@ -476,7 +475,6 @@ def make_block_adaptive_run(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
                                  fixed_iter=fixed_iter,
                                  split_solve=split_solve,
                                  refit_fixed=refit_fixed,
-                                 q_cumsum=q_cumsum,
                                  _knockout=_knockout)
 
     @jax.jit
